@@ -4,11 +4,11 @@ Compares the two constructions of the same rate-0.5 dv{2,3,9,17}/dc{8,9}
 ensemble (the reference's flagship irregular profile, README.md:89-119):
 
 - ``--code peg``: the unstructured PEG code (the reference's construction,
-  peg/BigGirth.C) — decode permutations are row gathers, DMA-issue-bound.
+  peg/BigGirth.C).
 - ``--code qc`` (default): the girth-8 irregular quasi-cyclic code
-  (core/qc.py qc_generate_irregular) — permutations decompose into
-  per-circulant cyclic rolls; on TPU the fused Pallas kernels
-  (decoder/qc_kernels.py) do one CN + one VN pass per iteration.
+  (core/qc.py qc_generate_irregular).
+- ``--code dvbs2`` / ``dvbs2-gather``: the ETSI standard matrix in its
+  Z=360 QC factorization / unpermuted.
 
 Identical ensemble => identical designed LUTs and matched BER physics
 (examples/dvbs2_waterfall.py holds the waterfall evidence); the only
@@ -29,10 +29,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-os.environ.setdefault("LUT_DECODE_MEM_BUDGET", str(11 << 30))
-
-
-DVBS2_ALIST = "/root/reference/codes/rate0.50_irreg_dvbs2_N64800.alist"
+DVBS2_ALIST = os.path.join(ROOT, "codes", "rate0.50_irreg_dvbs2_N64800.alist")
 
 
 def main():
@@ -60,12 +57,12 @@ def main():
             ROOT, "codes", "rate0.50_dv02-17_dc08-09_N64800_qc.qc.json")))
     elif args.code == "dvbs2":
         # the ETSI standard matrix, permuted to its Z=360 QC form with
-        # one phantom completion (core/dvbs2.py) -> fused kernel path
+        # one phantom completion (core/dvbs2.py)
         from lut_ldpc_tpu.core.dvbs2 import load_periodic_alist
 
         graph, _, _ = load_periodic_alist(DVBS2_ALIST)
     elif args.code == "dvbs2-gather":
-        # the same standard matrix decoded unpermuted (row-gather path)
+        # the same standard matrix decoded unpermuted
         graph = TannerGraph.from_alist(DVBS2_ALIST)
     else:
         graph = TannerGraph.from_alist(os.path.join(
@@ -82,8 +79,7 @@ def main():
     dec = make_staged_decoder(codec, early_exit=True, max_batch=args.batch)
     inner = getattr(dec, "inner", dec)
     print(f"# decoder: {type(dec).__name__} (inner {type(inner).__name__}, "
-          f"dtype {getattr(inner, '_dtype_np', '?')}, "
-          f"qc_kernels {getattr(inner, '_use_qc_kernels', lambda: False)()}) "
+          f"dtype {getattr(inner, '_dtype_np', '?')}) "
           f"built in {time.perf_counter()-t0:.1f}s", file=sys.stderr)
 
     B = args.batch

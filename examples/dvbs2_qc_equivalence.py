@@ -1,7 +1,7 @@
 """Statistical BER/FER equivalence of the two DVB-S2 realizations.
 
 The ETSI standard matrix decodes either unpermuted (row-gather path) or
-in its Z=360 QC factorization (core/dvbs2.py, fused kernels).  The QC
+in its Z=360 QC factorization (core/dvbs2.py).  The QC
 realization is the same code up to bit relabeling, with LUT-tree leaf
 order following circulant slot order — frame-level outcomes differ, the
 waterfall must not.  This runs both realizations with the IDENTICAL
@@ -22,9 +22,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ALIST = "/root/reference/codes/rate0.50_irreg_dvbs2_N64800.alist"
-
-os.environ.setdefault("LUT_DECODE_MEM_BUDGET", str(11 << 30))
+ALIST = os.path.join(ROOT, "codes", "rate0.50_irreg_dvbs2_N64800.alist")
 
 
 def run(graph, snrs, frames, batch, thr):

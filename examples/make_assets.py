@@ -119,7 +119,7 @@ def main():
         assert g.nvar == 64800 and g.nchk == 32400
         write_alist(out_dvbs2, g.to_dense())
 
-    # --- quasi-cyclic codes (the TPU-native construction, core/qc.py) ------
+    # --- quasi-cyclic codes (core/qc.py) ------------------------------------
     # girth-8 QC structures whose decode permutations are cyclic rolls; the
     # .qc.json stores the (Z, mb, nb, base-shift) grid, qc_expand() the graph
     from lut_ldpc_tpu.core.qc import (qc_expand, qc_generate_irregular,

@@ -1,5 +1,5 @@
-"""lut_ldpc_tpu: TPU-native design and evaluation of finite-alphabet
-(lookup-table) message-passing LDPC decoders.
+"""lut_ldpc_tpu: design and evaluation of finite-alphabet (lookup-table)
+message-passing LDPC decoders in JAX.
 
 Layers (bottom to top):
 

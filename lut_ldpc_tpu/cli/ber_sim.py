@@ -1,8 +1,8 @@
 """ber_sim CLI: INI-driven Monte-Carlo BER simulation.
 
-Mirrors /root/reference/prog/ber_sim.cpp: -p/--params INI file, -s/--seed,
+Mirrors the reference's prog/ber_sim.cpp: -p/--params INI file, -s/--seed,
 -b/--basedir, -c/--custom-name; the presence of a [LUT] vs [BP] section
-selects the decoder family.  Extra TPU-side flags: --mesh N runs data-
+selects the decoder family.  Extra device flags: --mesh N runs data-
 parallel over the first N devices, --cpu forces the CPU backend.
 
 Results land in <results_dir>/<prefix>_N..._R..._maxIter..._zcw..._frames...

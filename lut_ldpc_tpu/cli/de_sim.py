@@ -1,6 +1,6 @@
 """de_sim CLI: density-evolution noise-threshold search.
 
-Mirrors /root/reference/prog/de_sim.cpp: an INI file with [Sim] plus either
+Mirrors the reference's prog/de_sim.cpp: an INI file with [Sim] plus either
 a [LUT] or [BP] section; sweeps exactly one of {maxiter_de vector, qbits
 rows, reuse_iter_vec} (LUT) or maxiter_de (BP); writes a human-readable
 threshold report with lambda2-stability values.  Sweep points run in a
@@ -166,8 +166,11 @@ def de_sim_lut(cp, out, mesh_n: int = 0) -> None:
                 # above the f64 threshold — up to ~0.025 sigma on some
                 # irregular ensembles; a window that excludes the true
                 # threshold makes the host bisection fail outright
-                de.set_bisec_window(max(thr_min, lo - max(10 * win, 0.03)),
-                                    min(lo + 2 * win, thr_max))
+                bracket = (max(thr_min, lo - max(10 * win, 0.03)),
+                           min(lo + 2 * win, thr_max))
+                print(f"accelerator bracket [{bracket[0]:.9g}, "
+                      f"{bracket[1]:.9g}] (explorer {lo:.9g})")
+                de.set_bisec_window(*bracket)
         else:
             print("de_sim: accelerator_sweep skipped (needs binary auto "
                   "trees and individual/joint_root strategy)")

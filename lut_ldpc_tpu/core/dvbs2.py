@@ -1,8 +1,8 @@
 """DVB-S2-family quasi-cyclic structure detection.
 
 The ETSI DVB-S2 standard LDPC matrices (the reference's flagship input,
-/root/reference/codes/rate0.50_irreg_dvbs2_N64800.alist, cf.
-codes/README.md there) are built from 360-column groups whose check
+codes/rate0.50_irreg_dvbs2_N64800.alist, cf. codes/README.md in the
+reference repository) are built from 360-column groups whose check
 connections shift by q = M/360 per column, plus a dual-diagonal
 accumulator for the parity bits.  Under the classic row/column
 permutation
@@ -17,9 +17,7 @@ the same block row), and ONE incomplete circulant — the accumulator
 wrap misses a single entry (the last parity column has degree 1).  The
 missing entries are returned as PHANTOM completions: the expanded graph
 carries them as pinned edges so decoding is exact for the TRUE matrix
-(decoder semantics in decoder/codec.py decode_ref), while the message
-permutations decompose into per-circulant rolls that the fused Pallas QC
-kernels consume (decoder/qc_kernels.py).
+(decoder semantics in decoder/codec.py decode_ref).
 
 Nothing here is DVB-S2-specific beyond the permutation template: any
 matrix that is circulant under the (t*q + i) row indexing is accepted.

@@ -18,12 +18,14 @@ def pack_rows(M: np.ndarray) -> np.ndarray:
     """Pack a (r, c) 0/1 matrix into (r, ceil(c/64)) uint64 words (LSB-first)."""
     M = np.asarray(M, dtype=np.uint8)
     r, c = M.shape
-    pad = (-c) % 64
+    # one bit per entry, 8 per byte LSB-first, then 8 bytes per
+    # little-endian word: column 64*w + j lands on bit j of word w
+    packed = np.packbits(M != 0, axis=1, bitorder="little")
+    pad = (-packed.shape[1]) % 8
     if pad:
-        M = np.concatenate([M, np.zeros((r, pad), dtype=np.uint8)], axis=1)
-    bits = M.reshape(r, -1, 64)
-    weights = (np.uint64(1) << np.arange(64, dtype=np.uint64))[None, None, :]
-    return (bits.astype(np.uint64) * weights).sum(axis=2, dtype=np.uint64)
+        packed = np.concatenate(
+            [packed, np.zeros((r, pad), dtype=np.uint8)], axis=1)
+    return np.ascontiguousarray(packed).view("<u8").astype(np.uint64)
 
 
 def unpack_rows(P: np.ndarray, ncols: int) -> np.ndarray:

@@ -1,12 +1,9 @@
-"""Quasi-cyclic LDPC construction: the TPU-native code family.
+"""Quasi-cyclic LDPC construction.
 
-The reference constructs unstructured PEG codes (peg/BigGirth.C) whose
-Tanner-graph message permutation is an arbitrary row gather — on TPU that
-gather is DMA-issue-rate-bound (~100 ns/row), ~5x off HBM bandwidth, and
-dominates decode time.  A quasi-cyclic code's permutation decomposes into
-per-circulant cyclic shifts: contiguous `jnp.roll` copies that XLA fuses
-into the adjacent compute passes at full memory bandwidth.  QC-LDPC is the
-standard deployed construction (802.11n/802.16e/5G-NR all use it) and its
+The reference constructs unstructured PEG codes (peg/BigGirth.C).  A
+quasi-cyclic code's Tanner graph is an (mb x nb) grid of cyclic shifts, so
+its message permutation decomposes into per-circulant rolls.  QC-LDPC is
+the standard deployed construction (802.11n/802.16e/5G-NR all use it) and its
 BER at matched degree distributions is on par with PEG; the LUT design
 path is untouched (LUTs depend only on the ensemble and design sigma,
 LDPC_Code_LUT.cpp:699-746).
@@ -78,11 +75,11 @@ def qc_expand(qc: QCStructure) -> TannerGraph:
     ascending (block col j, shift s).  For weight-1-only structures this
     equals the ascending-index order of a sorted expansion (distinct block
     rows/cols order by block id), so existing codes are unchanged; for
-    weight-2 cells it is the unique order that is UNIFORM in z, which the
-    fused QC kernels require (fast_layout.qc_plan).  The slot order also
+    weight-2 cells it is the unique order that is UNIFORM in z, so the
+    permutation decomposes into per-circulant rolls.  The slot order also
     fixes the LUT-tree leaf assignment per node — a realization choice
     equivalent to feeding the reference the expanded (permuted) matrix,
-    /root/reference/src/LDPC_Code_LUT.cpp:488-541.
+    the reference's src/LDPC_Code_LUT.cpp:488-541.
 
     Phantom completions (qc.phantoms) become real edges of the expanded
     graph, recorded in graph.qc_phantoms as dicts with the variable, check,
@@ -135,7 +132,7 @@ def _reorder_checks_to_slot_order(g: TannerGraph, qc: QCStructure,
     affected checks are rewritten to ascending (block col, shift) — a pure
     relabeling of the check's socket positions (the CN update is symmetric
     in its inputs: min-sum two-min + sign parity and XOR syndrome are
-    order-free), required for the per-slot DMA tables of the QC kernels."""
+    order-free), so every check's sockets follow one uniform slot order."""
     Z = qc.Z
     if qc.base2 is None or not (np.asarray(qc.base2) >= 0).any():
         return
@@ -211,9 +208,8 @@ def qc_generate_regular(dv: int, dc: int, Z: int, nb: int,
     shift_step restricts shifts to multiples of the step.  WARNING: with
     step > 1 and step | Z, z mod step is invariant along every edge, so
     the expanded graph decomposes into `step` disconnected length-N/step
-    subcodes with correspondingly worse waterfalls — decoder/qc_kernels.py
-    handles arbitrary shifts (aligned-window DMA + realign slice), so
-    there is no reason to use step != 1."""
+    subcodes with correspondingly worse waterfalls — the decoders handle
+    arbitrary shifts, so there is no reason to use step != 1."""
     if (nb * dv) % dc:
         raise ValueError("nb*dv must be divisible by dc")
     mb = nb * dv // dc
@@ -316,9 +312,8 @@ def qc_generate_irregular(ensemble, Z: int, nb: int, seed: int = 1,
     1/nb (largest-remainder), every circulant has weight 1, and each
     variable block's circulants live in DISTINCT check blocks — so the
     expanded graph's per-column sorted check order equals the circulant
-    (check-block) order uniformly in z, which is what lets the decoder
-    replace its permutation gathers with per-circulant cyclic rolls
-    (fast_layout.GroupedLayout.qc_plan).  Shifts are greedy-random
+    (check-block) order uniformly in z, so the message permutation
+    decomposes into per-circulant cyclic rolls.  Shifts are greedy-random
     under the Fossorier cycle conditions (girth 8 with per-circulant
     relaxation to 6, as in qc_generate_regular).
 

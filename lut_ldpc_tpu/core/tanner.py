@@ -1,7 +1,7 @@
-"""Tanner-graph layout for the TPU decoder.
+"""Tanner-graph layout for the batched decoders.
 
 The reference decoder walks the graph edge by edge with scalar loops
-(/root/reference/src/LDPC_Code_LUT.cpp:488-541, 259-353).  On TPU we instead
+(its src/LDPC_Code_LUT.cpp:488-541, 259-353).  Here we instead
 precompute *static, degree-grouped dense index arrays* once per code:
 
 - edges are enumerated VN-major (all edges of variable 0, then 1, ...; within
@@ -14,9 +14,9 @@ precompute *static, degree-grouped dense index arrays* once per code:
   (edge ids within a check sorted by variable id, matching the reference's
   cn_msg_idx construction).
 
-All gathers use a flat (B, E) message tensor; the index arrays are small and
-VMEM-resident, which is what makes the message-passing sweep map onto the
-TPU's vector units instead of scalar address arithmetic.
+All gathers use a flat (B, E) message tensor; the index arrays are small,
+which is what makes the message-passing sweep map onto vector units instead
+of scalar address arithmetic.
 """
 
 from __future__ import annotations

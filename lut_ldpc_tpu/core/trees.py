@@ -7,7 +7,7 @@ message labels flow leaves->root through the designed tables.
 
 This module is the host-side (design/serialization/reference-eval) form;
 `lut_ldpc_tpu.decoder.layout` flattens designed trees into stacked integer
-tables for the TPU decoder.
+tables for the batched decoders.
 
 Semantics mirror /root/reference/src/LUT_Tree.{hpp,cpp}; the text
 serialization format is byte-compatible with the reference
@@ -112,7 +112,7 @@ class TreeNode:
         self.p, self.Q = update_fn(p_in, self.K, self.Q if reuse else None)
         return self.p
 
-    # -- run-time reference evaluation (scalar; golden model for TPU path) --
+    # -- run-time reference evaluation (scalar; golden model for the batched path) --
     def var_eval(self, msgs: list[int]) -> int:
         """Mixed-radix label build + mirrored half-LUT lookup (LUT_Tree.cpp:402)."""
         if self.is_leaf():

@@ -10,8 +10,8 @@ designed VN-tree node is therefore exactly representable as
 with per-input value tables v (the design-time LLRs of the child pmfs) and
 K-1 thresholds — i.e. add + threshold-count, no table lookup.  Carrying
 *values* instead of labels through the whole decoder turns message passing
-into pure vector arithmetic (the TPU's VPU sweet spot) and eliminates the
-per-element gathers that dominate a table-based decoder on TPU:
+into pure elementwise arithmetic and eliminates the per-element table
+gathers that dominate a table-based decoder:
 
 - a message's value encodes its label via a strictly monotone symmetric map,
   so the integer min-LUT CN update (sign parity + two-min on magnitude

@@ -31,6 +31,16 @@ _PHI_CLIP_LO = 1e-7
 _PHI_CLIP_HI = 30.0
 
 
+def _seq_sum(x: jnp.ndarray, keepdims: bool = False) -> jnp.ndarray:
+    """Sum over the last axis, left to right.  A reduction's order is the
+    backend's choice, so f32 results would differ in the last bits between
+    CPU and GPU; a fixed chain of adds does not."""
+    out = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        out = out + x[..., j]
+    return out[..., None] if keepdims else out
+
+
 def boxplus_phi(x: jnp.ndarray) -> jnp.ndarray:
     """phi(x) = -log(tanh(x/2)) on clipped positive input (self-inverse)."""
     x = jnp.clip(x, _PHI_CLIP_LO, _PHI_CLIP_HI)
@@ -142,7 +152,7 @@ class BPDecoder:
         mag = jnp.abs(m)
         if self.algorithm == "spa":
             p = boxplus_phi(mag)
-            s = jnp.sum(p, axis=-1, keepdims=True)
+            s = _seq_sum(p, keepdims=True)
             mag_out = boxplus_phi(s - p)
         else:
             d = m.shape[-1]
@@ -175,7 +185,7 @@ class BPDecoder:
                 idx = self._vn_edge_idx[d]
                 m = msgs[:, idx]  # (B, n_d, d)
                 node_llr = llr[:, self._vn_node_idx[d]]
-                total = node_llr + jnp.sum(m, axis=-1)
+                total = node_llr + _seq_sum(m)
                 post = post.at[:, self._vn_node_idx[d]].set(total)
                 out = out.at[:, idx].set(jnp.clip(total[..., None] - m, -clip, clip))
             return out, post
@@ -199,7 +209,8 @@ class BPDecoder:
             iters = jnp.full((B,), self.max_iters, dtype=jnp.int32)
             post = llr
 
-            for ii in range(self.max_iters):
+            def body(ii, carry):
+                msgs, post, done, latched, iters = carry
                 msgs_new = cn_pass(msgs)
                 msgs_new, post_new = vn_pass(msgs_new, llr)
                 msgs = jnp.where(done[:, None], msgs, msgs_new)
@@ -210,6 +221,13 @@ class BPDecoder:
                     latched = jnp.where(conv[:, None], bits, latched)
                     iters = jnp.where(conv, ii + 1, iters)
                     done = done | conv
+                return msgs, post, done, latched, iters
+
+            # one compiled iteration, not max_iters unrolled copies: the
+            # unrolled program grows with the budget and compiles for
+            # minutes at N=64800
+            msgs, post, done, latched, iters = jax.lax.fori_loop(
+                0, self.max_iters, body, (msgs, post, done, latched, iters))
 
             bits = (post < 0).astype(jnp.uint8)
             ok_final = syndrome_ok(bits)

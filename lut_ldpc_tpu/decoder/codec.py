@@ -6,7 +6,7 @@ with reuse bookkeeping, and the optional systematic generator.  `design`
 mirrors design_luts (cpp:699-746); `save`/`load` persist the full artifact
 (npz container, trees in the reference's text format so they remain
 interchangeable); `decode_ref` is the scalar golden model of lut_decode
-(cpp:259-353) used to validate the batched TPU decoder.
+(cpp:259-353) used to validate the batched decoders.
 """
 
 from __future__ import annotations
@@ -447,7 +447,7 @@ class LUTCodec:
         if qc is not None:
             # persist the quasi-cyclic structure so a reloaded codec keeps
             # the SAME graph realization (slot order = leaf assignment)
-            # and the fused-kernel decode path; phantom completions ride
+            # and decodes identically; phantom completions ride
             # along (cols_flat/to_dense stay the TRUE matrix)
             arrays["qc_Z"] = np.int64(qc.Z)
             arrays["qc_base"] = np.asarray(qc.base, np.int64)
@@ -485,7 +485,7 @@ class LUTCodec:
                                for row in z["qc_phantoms"])
                 if "qc_phantoms" in z.files else (),
             )
-            graph = qc_expand(qc)  # identical realization + kernel path
+            graph = qc_expand(qc)  # identical realization
             if graph.nvar != nvar or graph.nchk != nchk:
                 raise ValueError("codec qc structure inconsistent")
         else:

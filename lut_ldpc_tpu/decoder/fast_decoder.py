@@ -1,4 +1,4 @@
-"""Scan-based LUT decoder: the TPU hot path.
+"""Scan-based LUT table decoder.
 
 Semantics identical to lut_decoder.LUTDecoder (validated against the scalar
 golden model), re-expressed for speed:

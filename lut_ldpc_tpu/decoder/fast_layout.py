@@ -1,8 +1,8 @@
 """Degree-grouped permutation layout + composed LUTs for the fast decoder.
 
 Two ideas turn the message-passing sweep into a handful of dense streaming
-ops (this is the TPU-native re-design of the reference's per-edge walks,
-/root/reference/src/LDPC_Code_LUT.cpp:259-353 — not a translation of them):
+ops (a re-design of the reference's per-edge walks, its
+src/LDPC_Code_LUT.cpp:259-353 — not a translation of them):
 
 1. **Permutation layout, no scatters.**  Edges live in two static orders:
    VN-grouped (variables sorted by degree, each variable's edges contiguous)
@@ -17,7 +17,7 @@ ops (this is the TPU-native re-design of the reference's per-edge walks,
    including all d leave-one-out evaluations — is precomposed into ONE
    table over the joint input label (d messages + channel), with the d
    4-bit outputs packed into one integer.  A VN update becomes a single
-   vector gather from a VMEM-resident table plus shift/mask unpacking,
+   vector gather from a small table plus shift/mask unpacking,
    instead of d tree walks of 2-input LUT lookups.  Tables are composed
    only while they fit (Nq^d * Nq_Cha entries <= 2^20); high-degree nodes
    fall back to per-op TreeProgram evaluation.
@@ -34,7 +34,6 @@ from .layout import TreeProgram, leave_one_out_idx, tree_program
 
 __all__ = [
     "GroupedLayout",
-    "QCPlan",
     "compose_var_loo_table",
     "compose_dec_table",
     "MAX_COMPOSED_ENTRIES",
@@ -52,45 +51,17 @@ class Block:
     n_pad: int = 0  # padded node count (== num_nodes when align == 1)
 
 
-@dataclass(frozen=True)
-class QCPlan:
-    """Roll decomposition of a QC graph's message permutations over the
-    slot-major padded edge arrays, in two equivalent views:
-
-    - ``copies``: flat (vn_start, cn_start, shift) descriptors, one per
-      circulant, sorted by cn_start; m_cn[cn_start + z'] =
-      m_vn[vn_start + (z' - shift) % Z] for z' in [0, Z).  Consumed by the
-      XLA scan-copy permutes.
-    - ``cn_rows`` / ``vn_cols``: per-grid-block static DMA tables for the
-      fused Pallas kernels.  cn_rows[i] = (class_idx, ((vn_base, shift),
-      ...) one per CN slot, (cn_base, ...) one per slot) for check block i
-      in CN-grouped layout-block order; vn_cols[j] likewise for variable
-      block j with node_base (flat row into the grouped node arrays) for
-      the channel/bits planes.
-
-    Validated exactly against the layout's perm_v2c at construction."""
-
-    Z: int
-    copies: tuple  # ((vn_start, cn_start, shift), ...)
-    cn_rows: tuple  # ((class_idx, ((vn_base, s), ...), (cn_base, ...)), ...)
-    vn_cols: tuple  # ((class_idx, node_base, ((cn_base, s), ...), (vn_base, ...)), ...)
-    cn_degrees: tuple  # per CN class degree
-    vn_degrees: tuple  # per VN class degree
-
-
 class GroupedLayout:
     """Static index arrays for the permutation-form decoder.
 
     slot_major=True lays each degree block out with the edge-slot axis
     OUTERMOST (block range reshapes to (d, n, B)), so per-slot reductions
-    and leave-one-out arrangements are contiguous slices — the layout the
-    TPU's (sublane, lane) tiling wants.  slot_major=False keeps (n, d, B)
-    node-major order.  The permutations absorb the difference.
+    and leave-one-out arrangements are contiguous slices.
+    slot_major=False keeps (n, d, B) node-major order.  The permutations
+    absorb the difference.
 
     align > 1 pads every block's node count to a multiple of `align`, so
-    each per-slot plane starts on a TPU tile boundary (int16 tiles are
-    (16, 128): 16-aligned slot sizes make the (E, B) <-> (d, n_pad, B)
-    reshapes free bitcasts instead of physical relayouts).  Padded node /
+    each per-slot plane starts on an aligned row boundary.  Padded node /
     edge rows carry garbage values by design; permutation entries for them
     point at row 0 and all reductions must mask with the blocks'
     [num_nodes, n_pad) ranges.  FastLUTDecoder keeps align=1.
@@ -194,143 +165,6 @@ class GroupedLayout:
         ).astype(np.int32)
 
     # ------------------------------------------------------------------
-    def qc_plan(self, qc):
-        """Flat roll decomposition of perm_v2c for a quasi-cyclic graph,
-        valid for ANY mix of degree classes (irregular QC codes,
-        core/qc.py qc_generate_irregular): a list of (vn_start, cn_start,
-        shift) copy descriptors, each meaning
-
-            m_cn[cn_start + z'] = m_vn[vn_start + (z' - shift) % Z]
-
-        for z' in [0, Z), with vn_start/cn_start flat row offsets into the
-        slot-major padded edge arrays.  Descriptors are sorted by cn_start
-        and cover every real CN-grouped row exactly once; uncovered rows
-        are padding.  Requires a slot-major layout, every circulant in a
-        distinct (row, column)-block pair (so per-node sorted edge order
-        equals circulant block order uniformly in z), and Z | every block's
-        node count.  VALIDATED exactly against perm_v2c; returns None when
-        the layout does not admit the decomposition (callers fall back to
-        the gather path)."""
-        if not self.slot_major:
-            return None
-        Z = qc.Z
-        circ = qc.circulants()
-        col_circs: dict[int, list] = {}
-        row_circs: dict[int, list] = {}
-        for i, j, s in circ:
-            col_circs.setdefault(j, []).append((i, s))
-            row_circs.setdefault(i, []).append((j, s))
-        # weight-2 cells are allowed: the graph must be built with
-        # slot-order edge lists (qc_expand), i.e. per-node order ascending
-        # (block, shift) uniformly in z; the exact perm_v2c validation
-        # below rejects any graph whose order does not match
-        for v in col_circs.values():
-            v.sort()
-        for v in row_circs.values():
-            v.sort()
-
-        # block lookup: (class index, edge/node bases, position in class)
-        def block_info(blocks, node_ids, nblocks, zsize):
-            """For each grid block id b, (class_idx, plane_e0, n_pad,
-            node_start, pos) such that slot k of grid block b starts at
-            flat edge row plane_e0 + k * n_pad + pos * zsize and its nodes
-            at grouped node row node_start + pos * zsize.  None when grid
-            blocks do not tile the classes."""
-            info = {}
-            for ci, (blk, ids) in enumerate(zip(blocks, node_ids)):
-                if blk.num_nodes % zsize:
-                    return None
-                # class node list must be consecutive zsize-runs of blocks
-                real = ids[: blk.num_nodes]
-                runs = real.reshape(-1, zsize)
-                if not np.array_equal(
-                    runs, runs[:, :1] + np.arange(zsize, dtype=runs.dtype)
-                ):
-                    return None
-                if np.any(runs[:, 0] % zsize):
-                    return None
-                for pos, b0 in enumerate(runs[:, 0] // zsize):
-                    info[int(b0)] = (
-                        ci, blk.edge_start, blk.n_pad, blk.node_start, pos
-                    )
-            return info if len(info) == nblocks else None
-
-        vn_ids = [
-            np.asarray(self.vn_nodes)[blk.node_start : blk.node_start + blk.n_pad]
-            for blk in self.vn_blocks
-        ]
-        cn_ids = [
-            np.asarray(self.cn_nodes)[blk.node_start : blk.node_start + blk.n_pad]
-            for blk in self.cn_blocks
-        ]
-        vinfo = block_info(self.vn_blocks, vn_ids, qc.nb, Z)
-        cinfo = block_info(self.cn_blocks, cn_ids, qc.mb, Z)
-        if vinfo is None or cinfo is None:
-            return None
-
-        def vn_flat(j, k):
-            _, e0v, npv, _, posv = vinfo[j]
-            return e0v + k * npv + posv * Z
-
-        def cn_flat(i, l):
-            _, e0c, npc, _, posc = cinfo[i]
-            return e0c + l * npc + posc * Z
-
-        copies = []
-        for j, lst in col_circs.items():
-            for k, (i, s) in enumerate(lst):
-                l = row_circs[i].index((j, s))
-                copies.append((vn_flat(j, k), cn_flat(i, l), s))
-        copies.sort(key=lambda t: t[1])
-
-        # exact validation: reconstruct perm_v2c from the plan on covered
-        # rows and require full coverage of the real CN-grouped rows
-        perm = np.full(self.num_edges_cn, -1, dtype=np.int64)
-        zp = np.arange(Z)
-        for vs, cs, s in copies:
-            if np.any(perm[cs : cs + Z] >= 0):
-                return None
-            perm[cs : cs + Z] = vs + (zp - s) % Z
-        covered = perm >= 0
-        nreal = sum(blk.degree * blk.num_nodes for blk in self.cn_blocks)
-        if int(covered.sum()) != nreal:
-            return None
-        if not np.array_equal(
-            perm[covered], self.perm_v2c.astype(np.int64)[covered]
-        ):
-            return None
-
-        # per-grid-block kernel tables, in layout (class, position) order
-        cn_order = sorted(range(qc.mb), key=lambda i: (cinfo[i][0], cinfo[i][4]))
-        vn_order = sorted(range(qc.nb), key=lambda j: (vinfo[j][0], vinfo[j][4]))
-        cn_rows = []
-        for i in cn_order:
-            ci = cinfo[i][0]
-            src = tuple(
-                (vn_flat(j, col_circs[j].index((i, s))), s)
-                for j, s in row_circs[i]
-            )
-            dst = tuple(cn_flat(i, l) for l in range(len(row_circs[i])))
-            cn_rows.append((ci, src, dst))
-        vn_cols = []
-        for j in vn_order:
-            ci, _, _, node_start, pos = vinfo[j]
-            node_base = node_start + pos * Z
-            src = tuple(
-                (cn_flat(i, row_circs[i].index((j, s))), s)
-                for i, s in col_circs[j]
-            )
-            dst = tuple(vn_flat(j, k) for k in range(len(col_circs[j])))
-            vn_cols.append((ci, node_base, src, dst))
-        return QCPlan(
-            Z=Z,
-            copies=tuple(copies),
-            cn_rows=tuple(cn_rows),
-            vn_cols=tuple(vn_cols),
-            cn_degrees=tuple(blk.degree for blk in self.cn_blocks),
-            vn_degrees=tuple(blk.degree for blk in self.vn_blocks),
-        )
-
 
 
 def _mixed_radix_digits(n: int, radices: list[int]) -> np.ndarray:

@@ -1,7 +1,7 @@
-"""Flatten designed LUT trees into dense table programs for the TPU decoder.
+"""Flatten designed LUT trees into dense table programs for the batched decoders.
 
 The reference evaluates each node update by walking an object tree per edge
-(/root/reference/src/LUT_Tree.cpp:402-445, 774-820).  On TPU a tree becomes a
+(its src/LUT_Tree.cpp:402-445, 774-820).  Here a tree becomes a
 *program*: a topologically ordered list of ops, each op a mixed-radix label
 build over its operands followed by one gather from a small integer table.
 Two tricks make every op a plain gather:

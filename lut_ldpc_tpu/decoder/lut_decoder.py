@@ -1,4 +1,4 @@
-"""Batched LUT message-passing decoder (the TPU hot path).
+"""Batched LUT message-passing decoder (unrolled table form).
 
 Re-expresses lut_decode (/root/reference/src/LDPC_Code_LUT.cpp:259-353) as
 dense batched tensor ops over a frame batch:

@@ -3,9 +3,9 @@
 Evolves symmetric message pmfs (channel / var-to-chk / chk-to-var) through
 LUT trees, designing the MI-optimal LUTs along the way, and searches noise
 thresholds by bisection.  Host-side float64 numpy: the pmfs are tiny and the
-quantizer DP is sequential, so this intentionally does not run on the TPU --
-its *outputs* (integer LUT tables + quantizer boundaries) feed the TPU
-decoder.
+quantizer DP is sequential, so this intentionally does not run on the
+accelerator -- its *outputs* (integer LUT tables + quantizer boundaries)
+feed the batched decoders.
 
 Semantics mirror /root/reference/src/LDPC_DE.cpp (LDPC_DE_LUT, the three
 irregular design strategies, bisec_search, get_quant_bound,

@@ -1,4 +1,4 @@
-"""Batched density evolution for BP on TPU: the SURVEY §2 parallelism
+"""Batched density evolution for BP on the accelerator: the SURVEY §2 parallelism
 mapping for DE ("pmf updates as dense on-chip convolutions/reductions").
 
 The host engine (de_bp.DEBp) is float64 and sequential over both DE
@@ -9,7 +9,7 @@ noise levels, and those evaluations are independent: this module runs a
 whole sigma grid in ONE jitted program, with
 
 - VN updates as batched weighted rFFT convolutions over the (S, grid)
-  pmf block (MXU/VPU-friendly dense math),
+  pmf block (dense math),
 - CN box-plus combinations as banded static-table gathers +
   segment-sums (the tq/tq2 tables are host-precomputed constants shared
   across the batch),
@@ -17,7 +17,7 @@ whole sigma grid in ONE jitted program, with
   budget) carried as masks in a lax.while_loop that stops when every
   point has decided.
 
-TPU arithmetic is float32, so a grid evaluation locates the threshold to
+Device arithmetic is float32, so a grid evaluation locates the threshold to
 ~1e-3 in sigma rather than the 1e-6 the f64 host bisection resolves.
 threshold() therefore runs coarse-to-fine f32 grid rounds on the
 accelerator and (optionally) hands the final bracket to the host f64

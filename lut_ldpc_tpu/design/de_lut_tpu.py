@@ -25,7 +25,7 @@ jitted program:
 - per-point exit conditions (Pe < Pe_max, non-improving budget) carried as
   masks in a lax.while_loop that stops when every sigma has decided.
 
-TPU arithmetic is float32, so a grid evaluation locates the threshold to
+Device arithmetic is float32, so a grid evaluation locates the threshold to
 ~1e-3 in sigma rather than the 1e-6 the f64 host bisection resolves, and
 duplicate-LLR label merging is skipped (a tie-breaking refinement that
 moves thresholds well below f32 resolution).  threshold() therefore runs
@@ -170,7 +170,7 @@ class DELutTPU:
                 "degree-1 VNs with Nq_Cha != Nq_Msg need a real root requant"
             )
         # mesh: shard the sigma-grid / candidate axis over a ('dp',)
-        # device mesh — the TPU mapping of de_sim's thread-per-sweep-point
+        # device mesh — the device mapping of de_sim's thread-per-sweep-point
         # fan-out (/root/reference/prog/de_sim.cpp:275).  Points are
         # independent (no collectives); each shard's while_loop exits on
         # its own points, and per-point results latch at their own exit,

@@ -2,8 +2,8 @@
 
 Design-time math runs on the host in float64 numpy: the pmfs involved are
 tiny (<= Nq_fine entries) and the algorithms are sequential dynamic programs,
-so there is nothing for a TPU to accelerate here.  The TPU-facing decoder
-consumes only the *outputs* of this module (integer LUT tables).
+so there is nothing for an accelerator to do here.  The batched decoders
+consume only the *outputs* of this module (integer LUT tables).
 
 Semantics follow the reference implementation of LUT-LDPC
 (/root/reference/src/common.cpp, /root/reference/src/LDPC_DE.cpp) but are

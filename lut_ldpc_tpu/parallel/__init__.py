@@ -1,11 +1,11 @@
-"""Multi-chip scale-out: SPMD data parallelism over a jax device mesh.
+"""Multi-device scale-out: SPMD data parallelism over a jax device mesh.
 
 The reference scales Monte-Carlo BER out by running one statically linked
 binary per seed per host and merging result files offline
-(/root/reference/README.md:54, scripts/aggregate_results.m).  The TPU-native
-equivalent is one SPMD program: frames are sharded over a ('dp',) mesh,
-every device simulates its own batch with a device-unique counter-based RNG
-key, and the error counters are psum-reduced over ICI in-program.
+(the reference's README.md:54, scripts/aggregate_results.m).  The
+equivalent here is one SPMD program: frames are sharded over a ('dp',)
+mesh, every device simulates its own global batch with a counter-based RNG
+key, and the per-batch error counters are gathered in-program.
 """
 
 from .mesh import (

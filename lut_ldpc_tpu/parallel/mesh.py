@@ -36,9 +36,9 @@ def make_dp_step(step_fn, mesh: Mesh, axis: str = "dp"):
     Counters come back UN-reduced as (n_devices,) vectors in global-batch
     order; the host applies the sequential early-exit rules exactly as a
     single-device run would and sums (replacing the offline result
-    merging of scripts/aggregate_results.m — on a real pod the gather
-    rides ICI, and partial sums are fine to psum in-device when the
-    caller does not need sequential-stop exactness).
+    merging of scripts/aggregate_results.m; partial sums are fine to
+    psum in-device when the caller does not need sequential-stop
+    exactness).
     """
     n = mesh.shape[axis]
 
@@ -61,7 +61,7 @@ def make_dp_step(step_fn, mesh: Mesh, axis: str = "dp"):
 def dp_mesh_2d(n_snr: int, n_devices: int | None = None,
                axes: tuple = ("snr", "dp")) -> Mesh:
     """2-D (snr x batch) mesh: SNR points run concurrently on mesh rows,
-    frames data-parallel along mesh columns (SURVEY.md section 2's TPU
+    frames data-parallel along mesh columns (SURVEY.md section 2's device
     mapping of the reference's per-seed x per-SNR shell fan-out)."""
     import numpy as np
 

@@ -1,11 +1,11 @@
 """Monte-Carlo BER/FER simulation harness (the equivalent of LDPC_BER_Sim).
 
 Where the reference decodes one frame at a time and scales out by launching
-one process per seed (/root/reference/src/LDPC_BER_Sim.cpp:246-311,
-README.md:54), this harness decodes a *batch* of frames per device step and
-scales out data-parallel over a jax device mesh (frames sharded, counters
-psum-reduced in-program) — the TPU-native replacement for the offline
-per-seed result merging of scripts/aggregate_results.m.
+one process per seed (its src/LDPC_BER_Sim.cpp:246-311, README.md:54),
+this harness decodes a *batch* of frames per device step and scales out
+data-parallel over a jax device mesh (frames sharded, counters gathered
+in-program) — the replacement for the offline per-seed result merging of
+scripts/aggregate_results.m.
 
 Semantics preserved from the reference:
 - per-SNR frame budget Nframes, early stop at Nfers frame errors (at batch
@@ -380,8 +380,8 @@ def run_from_config(
                 Zd = config.ldpc.qc_detect_Z
                 graph, _, _ = load_periodic_alist(alist, Zd)
                 if verbose:
-                    print(f"QC structure detected (Z={Zd}): fused kernel "
-                          f"path enabled for {os.path.basename(alist)}")
+                    print(f"QC structure detected (Z={Zd}) in "
+                          f"{os.path.basename(alist)}")
             except ValueError:
                 pass
         if graph is None:

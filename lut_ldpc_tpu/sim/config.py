@@ -50,7 +50,7 @@ class SimConfig:
     codes_dir: str = "codes"
     codec_filename: str = ""
     custom_name: str = ""
-    batch_size: int = 128  # frames per device step (TPU-side knob; no INI analog)
+    batch_size: int = 128  # frames per device step (no reference INI analog)
 
 
 @dataclass
@@ -62,8 +62,7 @@ class LDPCConfig:
     save_permuted: bool = False
     parity_check_iter: bool = True
     # qc_detect=1: factorize a DVB-S2-family 360-periodic matrix into its
-    # quasi-cyclic form (core/dvbs2.py) so decoding rides the fused
-    # Pallas kernels.  Statistically identical (same code up to bit
+    # quasi-cyclic form (core/dvbs2.py).  Statistically identical (same code up to bit
     # relabeling; the LUT-tree leaf order follows circulant slot order,
     # equivalent to feeding the reference the permuted alist) but not
     # frame-bit-identical to the unpermuted realization — default off to

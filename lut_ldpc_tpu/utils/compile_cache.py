@@ -1,43 +1,38 @@
-"""Persistent XLA compilation cache setup.
+"""Persistent XLA compilation cache placement.
 
 The reference simulator starts in milliseconds (a C++ binary); a JAX
-process pays a cold XLA compile for every decoder shape.  Enabling the
-persistent compilation cache amortizes that across processes: the first
-run of a given (codec, batch) shape compiles and stores the executable,
-later runs deserialize it in ~100 ms.
+process pays a cold XLA compile for every decoder shape.  The persistent
+compilation cache amortizes that across processes: the first run of a
+given (codec, batch) shape compiles and stores the executable, later
+runs load it.
 
-Called from lut_ldpc_tpu/__init__.py.  Controlled by:
+Called from lut_ldpc_tpu/__init__.py.  Where the cache lives:
 
-- ``LUT_LDPC_CACHE_DIR``: cache directory (default
-  ``~/.cache/lut_ldpc_tpu/xla``); set to ``0``/``off`` to disable.
+- ``JAX_COMPILATION_CACHE_DIR`` set: JAX reads the variable itself and
+  nothing here sets a directory;
+- otherwise ``build/jax_cache`` in the repository checkout.  The path is
+  fixed because it is part of every entry's key: a directory that moves
+  never hits.
 """
 
 from __future__ import annotations
 
 import os
 
-_DONE = False
+REPO_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "build", "jax_cache")
 
 
 def enable_compilation_cache() -> None:
-    global _DONE
-    if _DONE:
-        return
-    _DONE = True
-    loc = os.environ.get("LUT_LDPC_CACHE_DIR", "")
-    if loc.lower() in ("0", "off", "none", "disable"):
-        return
-    if not loc:
-        loc = os.path.join(
-            os.path.expanduser("~"), ".cache", "lut_ldpc_tpu", "xla"
-        )
-    try:
-        os.makedirs(loc, exist_ok=True)
-        import jax
+    import jax
 
-        jax.config.update("jax_compilation_cache_dir", loc)
-        # cache even fast compiles: a BER sweep touches many small shapes
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        try:
+            os.makedirs(REPO_CACHE_DIR, exist_ok=True)
+        except OSError:  # read-only checkout: run without a cache
+            return
+        jax.config.update("jax_compilation_cache_dir", REPO_CACHE_DIR)
+    # cache even fast compiles: a BER sweep touches many small shapes
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)

@@ -19,9 +19,9 @@ def test_batched_convergence_matches_host(ens36):
     the threshold (f32 cannot split hairs exactly at it)."""
     host = DEBp(ens36, Nb=9)
     host.Pe_max = 1e-6
-    tpu = DEBpTPU(ens36, Nb=9, Pe_max=1e-6, maxiter_de=1000)
+    dea = DEBpTPU(ens36, Nb=9, Pe_max=1e-6, maxiter_de=1000)
     sigmas = np.array([0.80, 0.84, 0.86, 0.90, 0.94])
-    ach, Pe = tpu.evolve_batch(sigmas)
+    ach, Pe = dea.evolve_batch(sigmas)
     for s, a in zip(sigmas, ach):
         code, _, _ = host.evolve(float(s))
         assert (code > 0) == bool(a), (s, code, a)
@@ -33,8 +33,8 @@ def test_batched_threshold_brackets_pinned(ens36):
     Pe_max 1e-6 -> 0.88046; re-derived live by the slow-marked test
     below).  Keeping the live host bisection out of the default suite
     saves ~150 s per run."""
-    tpu = DEBpTPU(ens36, Nb=9, Pe_max=1e-6, maxiter_de=1000)
-    thr = tpu.threshold(points=9, rounds=3)
+    dea = DEBpTPU(ens36, Nb=9, Pe_max=1e-6, maxiter_de=1000)
+    thr = dea.threshold(points=9, rounds=3)
     assert abs(thr - 0.88046) < 3e-3, thr
 
 
@@ -47,8 +47,8 @@ def test_batched_threshold_brackets_host(ens36):
     host.set_exit_conditions(maxiter_de=1000)
     _, thr_host = host.bisec_search()
     assert abs(thr_host - 0.88046) < 5e-4, thr_host
-    tpu = DEBpTPU(ens36, Nb=9, Pe_max=1e-6, maxiter_de=1000)
-    thr = tpu.threshold(points=9, rounds=3)
+    dea = DEBpTPU(ens36, Nb=9, Pe_max=1e-6, maxiter_de=1000)
+    thr = dea.threshold(points=9, rounds=3)
     assert abs(thr - thr_host) < 3e-3, (thr, thr_host)
 
 
@@ -57,6 +57,6 @@ def test_irregular_batch(ens36):
     ens = LDPCEnsemble(np.array([2, 3, 8]),
                        np.array([0.2857, 0.2571, 0.4572]),
                        np.array([7]), np.array([1.0]))
-    tpu = DEBpTPU(ens, Nb=9, Pe_max=1e-6, maxiter_de=500)
-    ach, Pe = tpu.evolve_batch(np.array([0.7, 1.1]))
+    dea = DEBpTPU(ens, Nb=9, Pe_max=1e-6, maxiter_de=500)
+    ach, Pe = dea.evolve_batch(np.array([0.7, 1.1]))
     assert bool(ach[0]) and not bool(ach[1])

@@ -33,9 +33,9 @@ def test_batched_convergence_matches_host(ens36):
     """Converged/diverged decisions agree with the host engine away from
     the threshold (f32 cannot split hairs exactly at it)."""
     host = make_host(ens36)
-    tpu = DELutTPU(ens36, maxiter_de=200, Pe_max=1e-6, max_ni_de_iters=30)
+    dea = DELutTPU(ens36, maxiter_de=200, Pe_max=1e-6, max_ni_de_iters=30)
     sigmas = np.array([0.82, 0.85, 0.88, 0.92])
-    ach, _ = tpu.evolve_batch(sigmas)
+    ach, _ = dea.evolve_batch(sigmas)
     for s, a in zip(sigmas, ach):
         code, *_ = host.evolve(float(s))
         assert (code >= 0) == bool(a), (s, code, a)
@@ -44,8 +44,8 @@ def test_batched_convergence_matches_host(ens36):
 def test_batched_threshold_near_host(ens36):
     """Grid-refined f32 threshold lands within 3e-3 of the host bisection
     value pinned from round 1."""
-    tpu = DELutTPU(ens36, maxiter_de=200, Pe_max=1e-6, max_ni_de_iters=30)
-    thr = tpu.threshold(points=9, rounds=3)
+    dea = DELutTPU(ens36, maxiter_de=200, Pe_max=1e-6, max_ni_de_iters=30)
+    thr = dea.threshold(points=9, rounds=3)
     assert abs(thr - THR_36_Q4_200) < 3e-3, thr
 
 
@@ -53,9 +53,9 @@ def test_refine_host_handoff(ens36):
     """threshold(refine_host=True) finishes with the f64 engine inside the
     explorer's bracket and matches the full host search."""
     host = make_host(ens36)
-    tpu = DELutTPU(ens36, maxiter_de=200, Pe_max=1e-6, max_ni_de_iters=30,
+    dea = DELutTPU(ens36, maxiter_de=200, Pe_max=1e-6, max_ni_de_iters=30,
                    host=host)
-    thr = tpu.threshold(points=9, rounds=2, refine_host=True)
+    thr = dea.threshold(points=9, rounds=2, refine_host=True)
     # widen the explorer bracket downward like cli/de_sim before refining
     host.set_bisec_window(max(host.thr_min, thr - 0.02), thr + 0.005)
     _, thr_full = host.bisec_search()
@@ -67,8 +67,8 @@ def test_irregular_joint_root_decisions():
     """The published irregular ensemble through the joint_root path:
     converges well below the 0.9292 threshold, diverges well above."""
     ens = LDPCEnsemble.read("ensembles/rate0.50_dv02-17_dc08-09_lut_q4.ens")
-    tpu = DELutTPU(ens, maxiter_de=400, Pe_max=1e-6, max_ni_de_iters=30)
-    ach, _ = tpu.evolve_batch(np.array([0.89, 0.96]))
+    dea = DELutTPU(ens, maxiter_de=400, Pe_max=1e-6, max_ni_de_iters=30)
+    ach, _ = dea.evolve_batch(np.array([0.89, 0.96]))
     assert bool(ach[0]) and not bool(ach[1])
 
 
@@ -77,14 +77,14 @@ def test_full_lut_mode_matches_host(ens36):
     Decisions agree with the host full-LUT engine; the full-LUT threshold
     beats min-LUT (tree CN is MI-optimal, min-sum is an approximation)."""
     host = make_host(ens36, min_lut=False)
-    tpu = DELutTPU(ens36, maxiter_de=200, Pe_max=1e-6, max_ni_de_iters=30,
+    dea = DELutTPU(ens36, maxiter_de=200, Pe_max=1e-6, max_ni_de_iters=30,
                    min_lut=False)
     sigmas = np.array([0.84, 0.87, 0.90])
-    ach, _ = tpu.evolve_batch(sigmas)
+    ach, _ = dea.evolve_batch(sigmas)
     for s, a in zip(sigmas, ach):
         code, *_ = host.evolve(float(s))
         assert (code >= 0) == bool(a), (s, code, a)
-    thr = tpu.threshold(points=9, rounds=3)
+    thr = dea.threshold(points=9, rounds=3)
     assert thr > THR_36_Q4_200  # full-LUT CN beats the min approximation
     assert abs(thr - 0.8692) < 3e-3, thr
 
@@ -92,9 +92,9 @@ def test_full_lut_mode_matches_host(ens36):
 def test_reuse_zeros_matches_plain(ens36):
     """All-zeros reuse matrix reproduces the plain evolve (same program
     math through the reuse-select path)."""
-    tpu = DELutTPU(ens36, maxiter_de=30, Pe_max=1e-6, max_ni_de_iters=30)
-    Pe0, it0 = tpu.prerank_reuse(0.80, np.zeros((1, 30), bool), pmax=1e-6)
-    _, Pe_plain = tpu.evolve_batch(np.array([0.80]))
+    dea = DELutTPU(ens36, maxiter_de=30, Pe_max=1e-6, max_ni_de_iters=30)
+    Pe0, it0 = dea.prerank_reuse(0.80, np.zeros((1, 30), bool), pmax=1e-6)
+    _, Pe_plain = dea.evolve_batch(np.array([0.80]))
     assert np.allclose(Pe0, Pe_plain, rtol=1e-4), (Pe0, Pe_plain)
     assert it0[0] < 30
 
@@ -103,13 +103,13 @@ def test_reuse_ranking_matches_host(ens36):
     """The f32 candidate ranking (what reuse_vec_opt --accel trims with)
     agrees with f64 host evolves over single-reuse candidates."""
     M = 30
-    tpu = DELutTPU(ens36, maxiter_de=M, Pe_max=1e-6, max_ni_de_iters=30)
+    dea = DELutTPU(ens36, maxiter_de=M, Pe_max=1e-6, max_ni_de_iters=30)
     cands = []
     for ii in (1, 3, 7, 15):
         rv = np.zeros(M, bool)
         rv[ii] = True
         cands.append(rv)
-    Pe, it_hit = tpu.prerank_reuse(0.80, np.stack(cands), pmax=1e-17)
+    Pe, it_hit = dea.prerank_reuse(0.80, np.stack(cands), pmax=1e-17)
     host = make_host(ens36, maxiter=M)
     host.Pe_max = 1e-17
     host.max_ni_de_iters = 30
@@ -128,24 +128,24 @@ def test_reuse_mixed_resolutions(ens36):
     K*Nq_Cha, not K*K — the Q-map slots must size accordingly (regression:
     this used to crash at trace time)."""
     M = 12
-    tpu = DELutTPU(ens36, Nq_Cha=32, Nq_Msg=16, maxiter_de=M,
+    dea = DELutTPU(ens36, Nq_Cha=32, Nq_Msg=16, maxiter_de=M,
                    Pe_max=1e-6, max_ni_de_iters=30)
     rm = np.zeros((2, M), bool)
     rm[1, 2] = True
-    Pe, it_hit = tpu.prerank_reuse(0.80, rm, pmax=1e-6)
+    Pe, it_hit = dea.prerank_reuse(0.80, rm, pmax=1e-6)
     assert Pe[1] >= Pe[0]  # reuse never helps
     # and the zeros row still matches the plain evolve (different fusion
     # choices across the two programs wiggle the f32 tail a little)
-    _, Pe_plain = tpu.evolve_batch(np.array([0.80]))
+    _, Pe_plain = dea.evolve_batch(np.array([0.80]))
     assert np.allclose(Pe[0], Pe_plain, rtol=3e-3)
 
 
 def test_reuse_rejects_initial_iteration(ens36):
-    tpu = DELutTPU(ens36, maxiter_de=10)
+    dea = DELutTPU(ens36, maxiter_de=10)
     rm = np.zeros((1, 10), bool)
     rm[0, 0] = True
     with pytest.raises(ValueError):
-        tpu.prerank_reuse(0.8, rm)
+        dea.prerank_reuse(0.8, rm)
 
 
 def test_batched_dp_matches_host_quantizer():
@@ -159,7 +159,7 @@ def test_batched_dp_matches_host_quantizer():
     rng = np.random.default_rng(7)
     ens = LDPCEnsemble(np.array([3]), np.array([1.0]),
                        np.array([6]), np.array([1.0]))
-    tpu = DELutTPU(ens, maxiter_de=4)
+    dea = DELutTPU(ens, maxiter_de=4)
     M, K, S = 64, 8, 12
     pmfs = []
     for _ in range(S):
@@ -170,7 +170,7 @@ def test_batched_dp_matches_host_quantizer():
     batch = jnp.asarray(np.stack(pmfs), jnp.float32)
     import jax
 
-    p_out_f32 = np.asarray(jax.jit(lambda p: tpu._quantize(p, K))(batch))
+    p_out_f32 = np.asarray(jax.jit(lambda p: dea._quantize(p, K))(batch))
     for i, p in enumerate(pmfs):
         _, p_host, _ = host_quant(p, K)
         assert np.allclose(p_out_f32[i], p_host, atol=2e-6), i
@@ -210,8 +210,8 @@ def test_irregular_threshold_published():
     """Full-depth irregular joint_root threshold within 2e-3 of the
     reference's published f64 value 0.929193 (README.md:175)."""
     ens = LDPCEnsemble.read("ensembles/rate0.50_dv02-17_dc08-09_lut_q4.ens")
-    tpu = DELutTPU(ens, maxiter_de=2000, Pe_max=1e-6, max_ni_de_iters=30)
-    thr = tpu.threshold(points=9, rounds=3)
+    dea = DELutTPU(ens, maxiter_de=2000, Pe_max=1e-6, max_ni_de_iters=30)
+    thr = dea.threshold(points=9, rounds=3)
     assert abs(thr - 0.929193) < 2e-3, thr
 
 
@@ -236,19 +236,19 @@ def test_joint_level_matches_host():
                  irregular_design_strategy=JOINT_LEVEL)
     host.Pe_max = 1e-6
     host.max_ni_de_iters = 30
-    tpu = DELutTPU(ens, 16, 16, maxiter_de=M, Pe_max=1e-6,
+    dea = DELutTPU(ens, 16, 16, maxiter_de=M, Pe_max=1e-6,
                    max_ni_de_iters=30, strategy=JOINT_LEVEL)
     # far from the threshold (~0.777 host / ~0.80 f32 explorer: the f32
     # explorer sits a little above the f64 host on this ensemble for
     # BOTH joint strategies) the decisions must agree
     sigmas = np.array([0.70, 0.95, 1.10])
-    ach, Pe = tpu.evolve_batch(sigmas)
+    ach, Pe = dea.evolve_batch(sigmas)
     for s, a in zip(sigmas, ach):
         code, *_ = host.evolve(float(s))
         assert (code > 0) == bool(a), (s, code, a)
     # and the explorer's bracket must cover the host threshold within
     # the de_sim margin (host 0.77727 at thr_prec 1e-4, pinned)
-    thr = tpu.threshold(points=17, rounds=2)
+    thr = dea.threshold(points=17, rounds=2)
     assert 0.77727 - 1e-3 < thr < 0.77727 + 0.05, thr
 
 
@@ -271,11 +271,11 @@ def test_nonuniform_nq_vec_matches_host():
     host = DELut(ens, 16, nqv, M, tv, tc)
     host.Pe_max = 1e-6
     host.max_ni_de_iters = 30
-    tpu = DELutTPU(ens, 16, nqv, maxiter_de=M, Pe_max=1e-6,
+    dea = DELutTPU(ens, 16, nqv, maxiter_de=M, Pe_max=1e-6,
                    max_ni_de_iters=30)
-    assert not tpu.uniform_nq
+    assert not dea.uniform_nq
     sigmas = np.array([0.70, 0.78, 0.90, 0.95])
-    ach, Pe = tpu.evolve_batch(sigmas)
+    ach, Pe = dea.evolve_batch(sigmas)
     for s, a in zip(sigmas, ach):
         code, *_ = host.evolve(float(s))
         assert (code > 0) == bool(a), (s, code, a)
@@ -284,7 +284,7 @@ def test_nonuniform_nq_vec_matches_host():
 def test_mesh_sharded_grid_matches_single_device(ens36):
     """Sigma-grid evaluation sharded over the 8-device mesh equals the
     single-device batch exactly (points are independent; per-point
-    results latch at their own exit) — the TPU mapping of de_sim's
+    results latch at their own exit) — the device mapping of de_sim's
     thread-per-sweep-point fan-out, now scaled across the mesh."""
     import jax
 

@@ -1,10 +1,15 @@
 """BP density evolution, de_sim / reuse_vec_opt CLI tools."""
 
+import os
+
 import numpy as np
 import pytest
 
 from lut_ldpc_tpu.core.ensemble import LDPCEnsemble
 from lut_ldpc_tpu.design.de_bp import DEBp
+
+ENS36 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "ensembles", "rate0.50_dv03_dc06.ens")
 
 
 @pytest.fixture(scope="module")
@@ -57,7 +62,7 @@ def test_de_sim_cli_lut(tmp_path):
 thr_prec = 1e-3
 maxiter_de = 30
 results_name = {out}
-ensemble_filename = /root/reference/ensembles/rate0.50_dv03_dc06.ens
+ensemble_filename = {ENS36}
 
 [LUT]
 min_lut = true
@@ -81,7 +86,7 @@ def test_de_sim_cli_bp(tmp_path):
 thr_prec = 5e-3
 maxiter_de = 100
 results_name = {out}
-ensemble_filename = /root/reference/ensembles/rate0.50_dv03_dc06.ens
+ensemble_filename = {ENS36}
 
 [BP]
 qbits = 8

@@ -1,14 +1,7 @@
-"""Regression: dryrun_multichip must keep the fused QC kernel path ACTIVE
-in the DRIVER's environment — devices pre-configured via XLA_FLAGS + CPU
-platform selected before process start, and NO interpret flag exported.
-
-Round-4 failure mode (`MULTICHIP_r04.json` rc=1): the interpret flag was
-only set inside the too-few-devices fallback branch of
-__graft_entry__.dryrun_multichip, so when the driver pre-configured 8 CPU
-devices the branch never ran, qc_kernels_supported() saw platform "cpu",
-and the decoder silently fell back to the XLA gather path.  The flag must
-now be set whenever the backend is not a real TPU, and the kernel-path
-assertion must fire BEFORE any "OK" output.
+"""dryrun_multichip in a fresh process with the devices configured before
+start (XLA_FLAGS + CPU platform): it runs the data-parallel Monte-Carlo
+step over the requested mesh, and fails, printing no OK line, when fewer
+devices are visible than it was asked for.
 
 Runs in a subprocess because XLA parses XLA_FLAGS once at backend start —
 the in-process test interpreter already consumed them (tests/conftest.py).
@@ -18,23 +11,26 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_dryrun_multichip_driver_env():
+@pytest.mark.parametrize("n_devices,ok", [(8, True), (16, False)])
+def test_dryrun_multichip_driver_env(n_devices, ok):
     env = dict(os.environ)
-    env.pop("LUT_LDPC_PALLAS_INTERPRET", None)
-    env.pop("LUT_LDPC_NO_PALLAS", None)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     env["JAX_PLATFORMS"] = "cpu"
     proc = subprocess.run(
         [sys.executable, "-c",
          "import jax\n"
-         "jax.config.update('jax_platforms', 'cpu')\n"
          "assert len(jax.devices()) == 8, jax.devices()\n"
          "import __graft_entry__ as g\n"
-         "g.dryrun_multichip(8)\n"],
+         f"g.dryrun_multichip({n_devices})\n"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
-    assert proc.returncode == 0, f"stdout:\n{proc.stdout}\nstderr:\n{proc.stderr}"
-    assert "qc_kernels=True" in proc.stdout, proc.stdout
+    out = f"stdout:\n{proc.stdout}\nstderr:\n{proc.stderr}"
+    assert (proc.returncode == 0) == ok, out
+    assert ("OK" in proc.stdout) == ok, out
+    if not ok:
+        assert "need 16 devices, have 8" in proc.stderr, out

@@ -1,10 +1,9 @@
-"""shard_map x fused-QC-Pallas-kernel composition on the virtual mesh.
+"""shard_map x value-domain decoder composition on the virtual mesh.
 
-The combination a real multi-chip run would use: the ArithLUTDecoder's
-fused kernel path (decoder/qc_kernels.py, interpret mode on CPU — same
-dataflow, no Mosaic) traced INSIDE shard_map over the 8-device mesh,
-frames sharded, counters psum-reduced.  Must equal the single-device
-run bit-for-bit (conftest.py forces the 8-device CPU platform)."""
+The combination a multi-device run uses: the ArithLUTDecoder traced
+INSIDE shard_map over the 8-device mesh, frames sharded, per-batch
+counters gathered.  Must equal the single-device run bit-for-bit
+(conftest.py forces the 8-device CPU platform)."""
 
 import numpy as np
 import pytest
@@ -24,7 +23,19 @@ def qc_codec():
                            Nq_Msg=16)
 
 
-def _run(codec, mesh, monkeypatch):
+@pytest.fixture(scope="module")
+def std_codec(qc_codec):
+    """The same matrix without its QC structure."""
+    from lut_ldpc_tpu.core.tanner import TannerGraph
+    from lut_ldpc_tpu.decoder import LUTCodec
+    from lut_ldpc_tpu.ops.pmf import snr2sig
+
+    g = TannerGraph.from_dense(qc_codec.graph.to_dense())
+    sig = float(snr2sig(0.5, 2.0))
+    return LUTCodec.design(g, sig * sig, max_iters=6, Nq_Cha=16, Nq_Msg=16)
+
+
+def _run(codec, mesh):
     from lut_ldpc_tpu.sim import BERSim, BERSimConfig, LDPCConfig, SimConfig
 
     cfg = BERSimConfig(
@@ -34,30 +45,27 @@ def _run(codec, mesh, monkeypatch):
     )
     sim = BERSim(cfg, codec.graph, codec=codec, mesh=mesh)
     if mesh is not None:
-        import os
-
         from lut_ldpc_tpu.decoder.arith_decoder import ArithLUTDecoder
 
         assert isinstance(sim.decoder, ArithLUTDecoder)
-        if os.environ.get("LUT_LDPC_PALLAS_INTERPRET"):
-            assert sim.decoder._use_qc_kernels()
     return sim.run(seed=0, verbose=False)
 
 
-def test_shardmap_kernel_decode_matches_single_device(qc_codec, monkeypatch):
+@pytest.mark.parametrize("graph", ["qc", "unstructured"])
+def test_shardmap_decode_matches_single_device(qc_codec, std_codec, graph):
     """Counters are EXACTLY invariant to mesh size: global-batch-index
     RNG keying (parallel/mesh.py make_dp_step) makes the 8-device run,
     the 1-device mesh run, and the unmeshed run produce identical
     results — the reference's same-seed-same-results contract
-    (LDPC_BER_Sim.cpp:129) extended across pod sizes."""
-    monkeypatch.setenv("LUT_LDPC_PALLAS_INTERPRET", "1")
+    (LDPC_BER_Sim.cpp:129) extended across device counts."""
     from lut_ldpc_tpu.parallel import dp_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device virtual CPU mesh")
-    res8 = _run(qc_codec, dp_mesh(8), monkeypatch)
-    res1 = _run(qc_codec, dp_mesh(1), monkeypatch)
-    res0 = _run(qc_codec, None, monkeypatch)
+    codec = qc_codec if graph == "qc" else std_codec
+    res8 = _run(codec, dp_mesh(8))
+    res1 = _run(codec, dp_mesh(1))
+    res0 = _run(codec, None)
     assert int(res8.frames[0]) == 32
     for other in (res1, res0):
         for field in ("frames", "frame_errors", "data_bit_errors",
@@ -65,23 +73,3 @@ def test_shardmap_kernel_decode_matches_single_device(qc_codec, monkeypatch):
             assert np.array_equal(
                 np.asarray(getattr(res8, field)),
                 np.asarray(getattr(other, field))), field
-
-
-def test_shardmap_kernel_vs_xla_path(qc_codec, monkeypatch):
-    """The kernel path under the mesh equals the XLA path under the same
-    mesh bit-for-bit (identical per-device RNG streams)."""
-    from lut_ldpc_tpu.parallel import dp_mesh
-
-    if len(jax.devices()) < 8:
-        pytest.skip("needs the 8-device virtual CPU mesh")
-    monkeypatch.setenv("LUT_LDPC_PALLAS_INTERPRET", "1")
-    res_k = _run(qc_codec, dp_mesh(8), monkeypatch)
-    monkeypatch.delenv("LUT_LDPC_PALLAS_INTERPRET")
-    monkeypatch.setenv("LUT_LDPC_NO_PALLAS", "1")
-    res_x = _run(qc_codec, dp_mesh(8), monkeypatch)
-    for a, b in (
-        (res_k.frame_errors, res_x.frame_errors),
-        (res_k.data_bit_errors, res_x.data_bit_errors),
-        (res_k.frames, res_x.frames),
-    ):
-        assert np.array_equal(np.asarray(a), np.asarray(b))

@@ -1,7 +1,7 @@
 """Generate API reference docs from docstrings into docs/api/.
 
-The reference ships a Doxygen target (`make doc`, /root/reference/Makefile:183-185,
-doc/Doxyfile); this is the equivalent for the TPU rebuild: one markdown
+The reference ships a Doxygen target (`make doc`, its Makefile:183-185,
+doc/Doxyfile); this is the equivalent here: one markdown
 page per module with class/function signatures and docstrings, plus an
 index.  Stdlib-only (no pdoc/sphinx in this environment).
 
@@ -78,7 +78,6 @@ def module_page(mod) -> str:
 def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     # force CPU so importing decoder modules never touches the chip
-    os.environ.setdefault("LUT_LDPC_NO_PALLAS", "1")
     import jax
 
     try:
